@@ -2,13 +2,14 @@
 """Pinhole camera flythrough — the interactive-renderer showcase.
 
 Orbits a real pinhole camera around scene 2 and renders every frame
-through the projective tiled+culled Pallas kernel, reporting sustained
+through the platform's renderer (on a GPU the projective tiled+culled
+Pallas kernel; on the CPU the XLA renderer), reporting sustained
 frames/second and rays/second (the reference app renders one frame per
 keypress; this is the same pipeline at animation rates). Optionally dumps
 PNG frames and/or plays the sequence in the terminal as 24-bit ANSI
 half-blocks (utils/display.py).
 
-Run on TPU:  python examples/flythrough_demo.py --frames 120
+Run on a GPU: python examples/flythrough_demo.py --frames 120
 Tiny on CPU: JAX_PLATFORMS=cpu python examples/flythrough_demo.py \\
                  --frames 4 --width 640 --height 480
 """
@@ -38,13 +39,13 @@ def main():
 
     import jax
 
-    from opencl_ray_tracer_tpu import (
+    from opencl_ray_tracer import (
         RenderConfig,
         create_scene,
         pinhole_camera,
+        render,
     )
-    from opencl_ray_tracer_tpu.kernels.fwd_tiled import render_tiled
-    from opencl_ray_tracer_tpu.utils import show, write_png
+    from opencl_ray_tracer.utils import show, write_png
 
     w, h = args.width, args.height
     cfg = RenderConfig(
@@ -69,13 +70,13 @@ def main():
         )
 
     # warm up / compile on frame 0's camera
-    fb = render_tiled(scene, camera_at(0.0), cfg)
+    fb = render(scene, camera_at(0.0), cfg)
     jax.block_until_ready(fb)
 
     t0 = time.perf_counter()
     for i in range(args.frames):
         angle = 2.0 * math.pi * i / max(args.frames, 1)
-        fb = render_tiled(scene, camera_at(angle), cfg)
+        fb = render(scene, camera_at(angle), cfg)
         jax.block_until_ready(fb)
         if args.png_prefix:
             write_png(f"{args.png_prefix}{i:03d}.png", fb)

@@ -6,7 +6,7 @@ perturbs the scene, then recovers sphere geometry + colours by gradient
 descent through the differentiable renderer — image rows sharded across all
 local devices, scene grads psum'd over the mesh.
 
-Run on TPU:          python examples/inverse_rendering_demo.py
+Run on a GPU:        python examples/inverse_rendering_demo.py
 Run on 8 fake chips: JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
                      python examples/inverse_rendering_demo.py --width 256 --height 128
 """
@@ -29,12 +29,12 @@ def main():
 
     import jax
 
-    from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera
-    from opencl_ray_tracer_tpu.diff import render_soft
-    from opencl_ray_tracer_tpu.models.inverse import SPHERE_PARAMS, fit_scene
-    from opencl_ray_tracer_tpu.parallel import make_mesh
-    from opencl_ray_tracer_tpu.scene import Scene
-    from opencl_ray_tracer_tpu.utils import write_png
+    from opencl_ray_tracer import RenderConfig, legacy_ortho_camera
+    from opencl_ray_tracer.diff import render_soft
+    from opencl_ray_tracer.models.inverse import SPHERE_PARAMS, fit_scene
+    from opencl_ray_tracer.parallel import make_mesh
+    from opencl_ray_tracer.scene import Scene
+    from opencl_ray_tracer.utils import write_png
 
     w, h = args.width, args.height
     cfg = RenderConfig(

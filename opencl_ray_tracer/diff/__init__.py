@@ -1,0 +1,3 @@
+from opencl_ray_tracer.diff.soft import render_soft, render_soft_jit, trace_soft
+
+__all__ = ["render_soft", "render_soft_jit", "trace_soft"]

@@ -1,0 +1,29 @@
+from opencl_ray_tracer.ops.intersect import (
+    EPSILON,
+    MISS_T,
+    Hit,
+    any_hit,
+    intersect_spheres,
+    intersect_tris,
+    nearest_hit,
+)
+from opencl_ray_tracer.ops.shading import (
+    shade_lambert,
+    shade_legacy,
+    shade_phong,
+    to_int_framebuffer,
+)
+
+__all__ = [
+    "EPSILON",
+    "MISS_T",
+    "Hit",
+    "any_hit",
+    "intersect_spheres",
+    "intersect_tris",
+    "nearest_hit",
+    "shade_lambert",
+    "shade_legacy",
+    "shade_phong",
+    "to_int_framebuffer",
+]

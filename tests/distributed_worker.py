@@ -29,7 +29,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P  # noqa: E402
 
 def main() -> None:
     coord, n_proc, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-    from opencl_ray_tracer_tpu.parallel.distributed import initialize
+    from opencl_ray_tracer.parallel.distributed import initialize
 
     initialize(
         coordinator_address=coord, num_processes=n_proc, process_id=pid
@@ -38,14 +38,14 @@ def main() -> None:
     devs = jax.devices()
     assert len(devs) == 8, f"expected 8 global devices, got {len(devs)}"
 
-    from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera
-    from opencl_ray_tracer_tpu.parallel.train import (
+    from opencl_ray_tracer import RenderConfig, legacy_ortho_camera
+    from opencl_ray_tracer.parallel.train import (
         init_train_state,
         make_train_step,
     )
-    from opencl_ray_tracer_tpu.scene import random_scene
-    from opencl_ray_tracer_tpu.diff.soft import render_soft_jit
-    from opencl_ray_tracer_tpu.parallel.mesh import IMAGE_AXIS
+    from opencl_ray_tracer.scene import random_scene
+    from opencl_ray_tracer.diff.soft import render_soft_jit
+    from opencl_ray_tracer.parallel.mesh import IMAGE_AXIS
 
     W, H = 128, 64
     cfg = RenderConfig(

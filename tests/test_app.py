@@ -3,8 +3,8 @@ scripted benchmark harness (F1/F2/SPACE controls)."""
 
 import numpy as np
 
-from opencl_ray_tracer_tpu import RenderConfig
-from opencl_ray_tracer_tpu.app import (
+from opencl_ray_tracer import RenderConfig
+from opencl_ray_tracer.app import (
     ButtonState,
     InputManager,
     MainState,
@@ -99,7 +99,7 @@ class TestMainStateHarness:
     def test_gamepad_drives_harness(self):
         """Pad buttons mirror the keyboard bindings: X = mode, Y = scene,
         A = re-run (component #16 wired into the state machine)."""
-        from opencl_ray_tracer_tpu.app.controller import Button
+        from opencl_ray_tracer.app.controller import Button
 
         sm, st = self.make()
         sm.update(0.016)
@@ -125,7 +125,7 @@ class TestMainStateHarness:
         run_scripted(sm, ["r", "p"])
         files = list(tmp_path.glob("*.png"))
         assert len(files) == 1
-        from opencl_ray_tracer_tpu.utils import read_png
+        from opencl_ray_tracer.utils import read_png
 
         img = read_png(str(files[0]))
         assert img.shape == (64, 128, 4)

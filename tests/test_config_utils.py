@@ -6,13 +6,13 @@ import time
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu.config import (
+from opencl_ray_tracer.config import (
     RenderConfig,
     Settings,
     SettingsError,
     load_config,
 )
-from opencl_ray_tracer_tpu.utils import (
+from opencl_ray_tracer.utils import (
     DeltaTime,
     PerformanceCounter,
     pack_rgba,
@@ -76,7 +76,7 @@ class TestRenderConfig:
         with pytest.raises(ValueError):
             RenderConfig(soft=True).validate()  # int fb + soft
         with pytest.raises(ValueError):
-            RenderConfig(tile_w=100).validate()
+            RenderConfig(cull_k=100).validate()  # not a multiple of 8
 
 
 class TestRng:
@@ -136,7 +136,7 @@ class TestImageIO:
 
 class TestNative:
     def test_native_lib_available_and_consistent(self):
-        from opencl_ray_tracer_tpu.native import (
+        from opencl_ray_tracer.native import (
             decode_png_native,
             encode_png_native,
             now_ns,

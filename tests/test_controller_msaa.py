@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera, render
-from opencl_ray_tracer_tpu.app.controller import (
+from opencl_ray_tracer import RenderConfig, legacy_ortho_camera, render
+from opencl_ray_tracer.app.controller import (
     AXIS_MAX,
     AXIS_MIN,
     Axis1D,
@@ -20,9 +20,9 @@ from opencl_ray_tracer_tpu.app.controller import (
     Button,
     Controller,
 )
-from opencl_ray_tracer_tpu.app.input import InputManager
-from opencl_ray_tracer_tpu.config import Settings
-from opencl_ray_tracer_tpu.models.renderer import MSAA_OFFSETS
+from opencl_ray_tracer.app.input import InputManager
+from opencl_ray_tracer.config import Settings
+from opencl_ray_tracer.models.renderer import MSAA_OFFSETS
 
 
 # -- Controller ---------------------------------------------------------------
@@ -177,7 +177,7 @@ def test_msaa_offsets_well_formed(n):
 # -- dynamic (traced-position) blit -------------------------------------------
 
 def test_blit_traced_positions_match_host_ints():
-    from opencl_ray_tracer_tpu.utils.texture import blit
+    from opencl_ray_tracer.utils.texture import blit
 
     rng = np.random.default_rng(0)
     dest = jnp.asarray(rng.uniform(0, 255, (32, 48, 4)).astype(np.float32))

@@ -7,10 +7,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera
-from opencl_ray_tracer_tpu.diff import render_soft
-from opencl_ray_tracer_tpu.ref import render_reference
-from opencl_ray_tracer_tpu.scene import Scene
+from opencl_ray_tracer import RenderConfig, legacy_ortho_camera
+from opencl_ray_tracer.diff import render_soft
+from opencl_ray_tracer.ref import render_reference
+from opencl_ray_tracer.scene import Scene
 
 W, H = 128, 64
 
@@ -80,7 +80,7 @@ def test_gradients_wrt_all_scene_leaves():
 
     Uses a compact scene fully inside the crop (scene1's geometry lives in
     640x480 coordinates and would fall outside a small test image)."""
-    from opencl_ray_tracer_tpu.scene import Cube, Lights, Scene
+    from opencl_ray_tracer.scene import Cube, Lights, Scene
 
     cube = Cube([0.2, 0.8, 0.3, 255.0])
     cube.scale(8.0).rotate((0.4, 0.3, 0.2)).translate((44.0, 16.0, -30.0))
@@ -118,8 +118,8 @@ def test_inverse_rendering_recovers_position():
     8-way collectives on a small CI host trip that. Two devices still
     exercise the sharded grad psum path; the full 8-device mesh is covered
     by the (single-step) test_parallel suite."""
-    from opencl_ray_tracer_tpu.models.inverse import SPHERE_PARAMS, fit_scene
-    from opencl_ray_tracer_tpu.parallel import make_mesh
+    from opencl_ray_tracer.models.inverse import SPHERE_PARAMS, fit_scene
+    from opencl_ray_tracer.parallel import make_mesh
 
     cam = legacy_ortho_camera()
     cfg = soft_cfg()

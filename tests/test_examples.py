@@ -1,4 +1,4 @@
-"""Smoke-run the examples/ scripts at tiny sizes (VERDICT r3 weak #8:
+"""Smoke-run the examples/ scripts at tiny sizes (
 untested examples are one refactor from silently breaking). Each runs in a
 forced-CPU subprocess exactly as the example's own docstring prescribes."""
 

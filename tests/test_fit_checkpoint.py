@@ -1,5 +1,5 @@
 """Checkpoint/resume in its production seat (fit_scene / cli fit) and the
-generalized cmd_fit surface — VERDICT r3 items 6 and 7.
+generalized cmd_fit surface.
 
 Interrupted-run semantics: fit 10 steps in one run vs fit 5 steps
 (checkpointed), "crash", then call fit_scene again for the remaining 5 —
@@ -9,14 +9,14 @@ the resumed run must land on the same state as the uninterrupted one.
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera
-from opencl_ray_tracer_tpu.diff import render_soft
-from opencl_ray_tracer_tpu.models.inverse import (
+from opencl_ray_tracer import RenderConfig, legacy_ortho_camera
+from opencl_ray_tracer.diff import render_soft
+from opencl_ray_tracer.models.inverse import (
     SPHERE_PARAMS,
     fit_scene,
     perturb_scene,
 )
-from opencl_ray_tracer_tpu.scene import Scene
+from opencl_ray_tracer.scene import Scene
 
 W, H = 128, 64
 
@@ -82,7 +82,7 @@ def test_fit_resume_past_end_is_noop(problem, tmp_path):
 
 
 def test_perturb_scene_jitters_only_spheres():
-    from opencl_ray_tracer_tpu.scene import create_scene
+    from opencl_ray_tracer.scene import create_scene
 
     s = create_scene(1)
     p = perturb_scene(s, seed=3)
@@ -95,9 +95,9 @@ def test_perturb_scene_jitters_only_spheres():
 
 def test_cmd_fit_general_surface(tmp_path, capsys):
     """cli fit runs the pinhole+phong path on a library scene at the scene's
-    native 640x480 frame (VERDICT #7). backend=xla keeps the CPU smoke fast
+    native 640x480 frame. backend=xla keeps the CPU smoke fast
     (the jnp twin instead of interpret-mode Pallas)."""
-    from opencl_ray_tracer_tpu.cli import main
+    from opencl_ray_tracer.cli import main
 
     out = str(tmp_path / "fit.png")
     rc = main([
@@ -114,6 +114,6 @@ def test_cmd_fit_general_surface(tmp_path, capsys):
     import os
 
     assert os.path.exists(out)
-    from opencl_ray_tracer_tpu.parallel.checkpoint import latest_checkpoint
+    from opencl_ray_tracer.parallel.checkpoint import latest_checkpoint
 
     assert latest_checkpoint(str(tmp_path / "ck")) is not None

@@ -17,13 +17,13 @@ import sys
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import (
+from opencl_ray_tracer import (
     RenderConfig,
     create_scene,
     legacy_ortho_camera,
     pinhole_camera,
 )
-from opencl_ray_tracer_tpu.utils import pack_rgba, read_png, write_png
+from opencl_ray_tracer.utils import pack_rgba, read_png, write_png
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 W, H = 160, 120
@@ -57,23 +57,23 @@ def render_case(engine, scene_num, shading, shadows, cam_kind):
     cam = _camera(cam_kind)
     scene = create_scene(scene_num, seed=0)
     if engine == "soft":
-        from opencl_ray_tracer_tpu.kernels.soft import render_soft_pallas
+        from opencl_ray_tracer.kernels.soft_tiled import render_soft_tiled
 
         cfg = RenderConfig(
             width=W, height=H, shading=shading, shadows=shadows, soft=True,
             framebuffer_dtype="float", tau_depth=1.0, tau_edge=0.5,
         )
-        fb = render_soft_pallas(scene, cam, cfg)
+        fb = render_soft_tiled(scene, cam, cfg, interpret=True)
     elif engine == "pallas":
-        from opencl_ray_tracer_tpu.kernels.fwd_tiled import render_tiled
+        from opencl_ray_tracer.kernels.fwd_tiled import render_tiled
 
         cfg = RenderConfig(
             width=W, height=H, shading=shading, shadows=shadows,
             framebuffer_dtype="int" if shading == "legacy" else "float",
         )
-        fb = render_tiled(scene, cam, cfg)
+        fb = render_tiled(scene, cam, cfg, interpret=True)
     else:
-        from opencl_ray_tracer_tpu.ref import render_reference
+        from opencl_ray_tracer.ref import render_reference
 
         cfg = RenderConfig(
             width=W, height=H, shading=shading, shadows=shadows,

@@ -5,13 +5,13 @@ tie-breaks, cube-before-sphere ordering)."""
 import numpy as np
 import jax.numpy as jnp
 
-from opencl_ray_tracer_tpu.ops import (
+from opencl_ray_tracer.ops import (
     MISS_T,
     intersect_spheres,
     intersect_tris,
     nearest_hit,
 )
-from opencl_ray_tracer_tpu.scene import Scene
+from opencl_ray_tracer.scene import Scene
 
 
 def make_scene(**kw):

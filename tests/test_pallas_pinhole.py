@@ -9,10 +9,10 @@ of the oracle's normalized-direction evaluation, so agreement is numerical
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import RenderConfig, pinhole_camera
-from opencl_ray_tracer_tpu.kernels.fwd_tiled import bin_scene, render_tiled
-from opencl_ray_tracer_tpu.ref import render_reference
-from opencl_ray_tracer_tpu.scene import random_scene
+from opencl_ray_tracer import RenderConfig, pinhole_camera
+from opencl_ray_tracer.kernels.fwd_tiled import bin_scene, render_tiled
+from opencl_ray_tracer.ref import render_reference
+from opencl_ray_tracer.scene import random_scene
 
 W, H = 256, 128  # 2x2 tiles of 128x64
 
@@ -36,7 +36,7 @@ def test_pinhole_tiled_legacy_parity(scene1):
     cfg = RenderConfig(width=W, height=H, shading="legacy")
     c = cam()
     oracle = render_reference(scene1, c, cfg)
-    tiled = render_tiled(scene1, c, cfg)
+    tiled = render_tiled(scene1, c, cfg, interpret=True)
     assert tiled.shape == (H, W, 4)
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995, f"only {frac:.4%} identical"
@@ -48,7 +48,7 @@ def test_pinhole_tiled_culling_vs_oracle(scene3_small):
     cfg = RenderConfig(width=W, height=H, shading="legacy", cull_k=64)
     c = cam()
     oracle = render_reference(scene3_small, c, cfg)
-    tiled = render_tiled(scene3_small, c, cfg)
+    tiled = render_tiled(scene3_small, c, cfg, interpret=True)
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995, f"only {frac:.4%} identical"
 
@@ -61,7 +61,7 @@ def test_pinhole_tiled_shaded_parity(scene1, shading, shadows):
     )
     c = cam()
     oracle = render_reference(scene1, c, cfg)
-    tiled = render_tiled(scene1, c, cfg)
+    tiled = render_tiled(scene1, c, cfg, interpret=True)
     close = frac_close(oracle, tiled)
     assert close > 0.995, f"only {close:.4%} of pixels within 0.5/255"
 
@@ -78,7 +78,7 @@ def test_pinhole_prim_behind_camera():
     )
     cfg = RenderConfig(width=W, height=H, shading="legacy")
     oracle = render_reference(scene, c, cfg)
-    tiled = render_tiled(scene, c, cfg)
+    tiled = render_tiled(scene, c, cfg, interpret=True)
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995, f"only {frac:.4%} identical"
 
@@ -93,12 +93,12 @@ def test_pinhole_bins_reuse_and_mismatch(scene1):
         packed, height=H, width=W, k=cfg.cull_k, shadows=False, camera=c
     )
     assert bins.projective
-    a = render_tiled(scene1, c, cfg)
-    from opencl_ray_tracer_tpu.kernels.fwd_tiled import render_tiled_packed
+    a = render_tiled(scene1, c, cfg, interpret=True)
+    from opencl_ray_tracer.kernels.fwd_tiled import render_tiled_packed
 
-    b = render_tiled_packed(packed, c, cfg, bins=bins)
+    b = render_tiled_packed(packed, c, cfg, bins=bins, interpret=True)
     assert np.array_equal(np.asarray(a), np.asarray(b))
 
     ortho_bins = bin_scene(packed, height=H, width=W, k=cfg.cull_k)
     with pytest.raises(ValueError, match="mismatch"):
-        render_tiled_packed(packed, c, cfg, bins=ortho_bins)
+        render_tiled_packed(packed, c, cfg, bins=ortho_bins, interpret=True)

@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera, pinhole_camera
-from opencl_ray_tracer_tpu.diff import render_soft
-from opencl_ray_tracer_tpu.kernels.soft import render_soft_pallas
-from opencl_ray_tracer_tpu.scene import Scene, random_scene
+from opencl_ray_tracer import RenderConfig, legacy_ortho_camera, pinhole_camera
+from opencl_ray_tracer.diff import render_soft
+from opencl_ray_tracer.kernels.soft_tiled import render_soft_tiled
+from opencl_ray_tracer.scene import Scene, random_scene
 
 W, H = 128, 64
 
@@ -23,7 +23,7 @@ def cfg(shading="lambert", **kw):
 
 
 def small_scene():
-    from opencl_ray_tracer_tpu.scene import Cube
+    from opencl_ray_tracer.scene import Cube
 
     cube = Cube([0.2, 0.8, 0.3, 255.0])
     cube.scale(9.0).rotate((0.4, 0.3, 0.2)).translate((90.0, 20.0, -35.0))
@@ -41,7 +41,7 @@ def test_soft_pallas_matches_jnp(shading):
     cam = legacy_ortho_camera()
     c = cfg(shading=shading)
     ref = np.asarray(render_soft(scene, cam, c))
-    pal = np.asarray(render_soft_pallas(scene, cam, c))
+    pal = np.asarray(render_soft_tiled(scene, cam, c, interpret=True))
     assert pal.shape == ref.shape
     err = np.abs(ref - pal)
     assert np.percentile(err, 99.9) < 0.1, f"p99.9 err {np.percentile(err, 99.9)}"
@@ -53,7 +53,7 @@ def test_soft_pallas_random_scene():
     cam = legacy_ortho_camera()
     c = cfg("lambert")
     ref = np.asarray(render_soft(scene, cam, c))
-    pal = np.asarray(render_soft_pallas(scene, cam, c))
+    pal = np.asarray(render_soft_tiled(scene, cam, c, interpret=True))
     assert np.abs(ref - pal).max() < 1.0
 
 
@@ -65,7 +65,7 @@ def test_soft_pallas_pinhole():
     )
     c = cfg("lambert")
     ref = np.asarray(render_soft(scene, cam, c))
-    pal = np.asarray(render_soft_pallas(scene, cam, c))
+    pal = np.asarray(render_soft_tiled(scene, cam, c, interpret=True))
     assert np.abs(ref - pal).max() < 1.0
     assert (pal[..., :3] > 1.0).any()  # scene visible
 
@@ -78,7 +78,7 @@ def test_soft_pallas_gradients_match_jnp():
     target = jnp.zeros((H, W, 4))
 
     def loss_pallas(s):
-        img = render_soft_pallas(s, cam, c)
+        img = render_soft_tiled(s, cam, c, interpret=True)
         return jnp.mean((img[..., :3] - target[..., :3]) ** 2)
 
     def loss_jnp(s):

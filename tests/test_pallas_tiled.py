@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import RenderConfig, legacy_ortho_camera
-from opencl_ray_tracer_tpu.kernels.fwd_tiled import render_tiled
-from opencl_ray_tracer_tpu.ref import render_reference
-from opencl_ray_tracer_tpu.scene import random_scene
+from opencl_ray_tracer import RenderConfig, legacy_ortho_camera
+from opencl_ray_tracer.kernels.fwd_tiled import render_tiled
+from opencl_ray_tracer.ref import render_reference
+from opencl_ray_tracer.scene import random_scene
 
 W, H = 256, 128  # 2x2 tiles of 128x64
 
@@ -21,7 +21,7 @@ def test_tiled_legacy_parity(scene_fix, request):
     cfg = RenderConfig(width=W, height=H, shading="legacy")
     cam = legacy_ortho_camera()
     oracle = render_reference(scene, cam, cfg)
-    tiled = render_tiled(scene, cam, cfg)
+    tiled = render_tiled(scene, cam, cfg, interpret=True)
     assert tiled.shape == (H, W, 4)
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995, f"only {frac:.4%} identical"
@@ -32,18 +32,18 @@ def test_tiled_culling_exhaustive_vs_oracle(scene3_small):
     cfg = RenderConfig(width=W, height=H, shading="legacy")
     cam = legacy_ortho_camera()
     oracle = render_reference(scene3_small, cam, cfg)
-    tiled = render_tiled(scene3_small, cam, cfg)
+    tiled = render_tiled(scene3_small, cam, cfg, interpret=True)
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995, f"only {frac:.4%} identical"
 
 
 def test_tiled_overflow_escalates_k_eagerly():
     """More overlapping prims in one tile than K: the eager wrapper must
-    re-bin with doubled K (VERDICT round-1 weak item 3 — no 10x brute
+    re-bin with doubled K (no 10x brute
     cliff) and stay correct."""
     import jax
 
-    from opencl_ray_tracer_tpu.kernels.fwd_tiled import bin_scene
+    from opencl_ray_tracer.kernels.fwd_tiled import bin_scene
 
     # 40 spheres piled on the same spot -> every tile they cover exceeds K=32
     scene = random_scene(40, 0, seed=9, bounds=(60.0, 40.0))
@@ -58,13 +58,13 @@ def test_tiled_overflow_escalates_k_eagerly():
         bin_scene(packed, height=H, width=W, k=48).overflow
     )
     oracle = render_reference(scene, cam, cfg)
-    tiled = render_tiled(scene, cam, cfg)  # eager: escalation path
+    tiled = render_tiled(scene, cam, cfg, interpret=True)  # eager: escalation path
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995, f"only {frac:.4%} identical"
 
     # under jit the overflow flag is traced: the lax.cond brute fallback
     # must produce the same image
-    from opencl_ray_tracer_tpu.kernels.fwd_tiled import render_tiled_packed
+    from opencl_ray_tracer.kernels.fwd_tiled import render_tiled_packed
 
     jitted = jax.jit(
         lambda p: render_tiled_packed(p, cam, cfg, interpret=True)
@@ -81,7 +81,7 @@ def test_tiled_shaded_parity(scene1, shading, shadows):
     )
     cam = legacy_ortho_camera()
     oracle = np.asarray(render_reference(scene1, cam, cfg))
-    tiled = np.asarray(render_tiled(scene1, cam, cfg))
+    tiled = np.asarray(render_tiled(scene1, cam, cfg, interpret=True))
     diff = np.abs(oracle - tiled).max(axis=-1)
     close = (diff < 0.5).mean()
     assert close > 0.995, f"only {close:.4%} of pixels within 0.5/255"
@@ -91,7 +91,7 @@ def test_tiled_non_aligned_resolution(scene1):
     cfg = RenderConfig(width=200, height=100, shading="legacy")
     cam = legacy_ortho_camera()
     oracle = render_reference(scene1, cam, cfg)
-    tiled = render_tiled(scene1, cam, cfg)
+    tiled = render_tiled(scene1, cam, cfg, interpret=True)
     assert tiled.shape == (100, 200, 4)
     frac = frac_identical(tiled, oracle)
     assert frac > 0.995
@@ -102,9 +102,9 @@ def test_tiled_spheres_only_and_tris_only():
     cfg = RenderConfig(width=W, height=H, shading="legacy")
     s_only = random_scene(10, 0, seed=5, bounds=(250.0, 120.0))
     assert frac_identical(
-        render_tiled(s_only, cam, cfg), render_reference(s_only, cam, cfg)
+        render_tiled(s_only, cam, cfg, interpret=True), render_reference(s_only, cam, cfg)
     ) > 0.995
     t_only = random_scene(0, 10, seed=6, bounds=(250.0, 120.0))
     assert frac_identical(
-        render_tiled(t_only, cam, cfg), render_reference(t_only, cam, cfg)
+        render_tiled(t_only, cam, cfg, interpret=True), render_reference(t_only, cam, cfg)
     ) > 0.995

@@ -11,9 +11,9 @@ than strict allclose.
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import RenderConfig, create_scene1, legacy_ortho_camera
-from opencl_ray_tracer_tpu.ref import render_reference
-from opencl_ray_tracer_tpu.scene import random_scene
+from opencl_ray_tracer import RenderConfig, create_scene1, legacy_ortho_camera
+from opencl_ray_tracer.ref import render_reference
+from opencl_ray_tracer.scene import random_scene
 
 MISS = 300000.0
 EPS = 1e-6

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from opencl_ray_tracer_tpu import Cube, create_scene, create_scene1
-from opencl_ray_tracer_tpu.scene import (
+from opencl_ray_tracer import Cube, create_scene, create_scene1
+from opencl_ray_tracer.scene import (
     TRIS_PER_CUBE,
     UNIT_CUBE_VERTS,
     bake_cube_params,

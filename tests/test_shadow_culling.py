@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from opencl_ray_tracer_tpu.kernels.fwd_tiled import (
+from opencl_ray_tracer.kernels.fwd_tiled import (
     TILE_H,
     TILE_W,
     _axis_s_interval,

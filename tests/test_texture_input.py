@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from opencl_ray_tracer_tpu.app.input import ButtonState, InputManager
-from opencl_ray_tracer_tpu.utils.texture import (
+from opencl_ray_tracer.app.input import ButtonState, InputManager
+from opencl_ray_tracer.utils.texture import (
     Texture,
     blit,
     resize_nearest,

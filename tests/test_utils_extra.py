@@ -4,7 +4,7 @@ import numpy as np
 import optax
 import pytest
 
-from opencl_ray_tracer_tpu.utils import mathutil, memory, platform_info, profiling
+from opencl_ray_tracer.utils import mathutil, memory, platform_info, profiling
 
 
 class TestMathUtil:
@@ -55,9 +55,10 @@ class TestPlatformInfo:
 class TestProfiling:
     def test_sol_fraction_model(self):
         out = profiling.sol_fraction(
-            frame_us=1000.0, n_pixels=2_073_600, n_prim_slots=32
+            frame_us=1000.0, n_pixels=2_073_600, n_prim_slots=32,
+            peaks=profiling.device_peaks("NVIDIA H100 80GB HBM3"),
         )
-        assert out["bound"] in ("vpu", "hbm")
+        assert out["bound"] in ("alu", "dram")
         assert 0 < out["achieved_fraction"] < 10
 
     def test_annotate_runs(self):
@@ -69,14 +70,14 @@ class TestCheckpoint:
     def test_save_load_roundtrip(self, tmp_path):
         import jax.numpy as jnp
 
-        from opencl_ray_tracer_tpu.parallel import init_train_state
-        from opencl_ray_tracer_tpu.parallel.checkpoint import (
+        from opencl_ray_tracer.parallel import init_train_state
+        from opencl_ray_tracer.parallel.checkpoint import (
             latest_checkpoint,
             load_checkpoint,
             resume_or_init,
             save_checkpoint,
         )
-        from opencl_ray_tracer_tpu.scene import Scene
+        from opencl_ray_tracer.scene import Scene
 
         scene = Scene.build(
             sphere_origin=[[1.0, 2.0, -3.0]],
@@ -101,9 +102,9 @@ class TestCheckpoint:
     def test_resume_without_checkpoint_returns_init(self, tmp_path):
         import jax.numpy as jnp
 
-        from opencl_ray_tracer_tpu.parallel import init_train_state
-        from opencl_ray_tracer_tpu.parallel.checkpoint import resume_or_init
-        from opencl_ray_tracer_tpu.scene import Scene
+        from opencl_ray_tracer.parallel import init_train_state
+        from opencl_ray_tracer.parallel.checkpoint import resume_or_init
+        from opencl_ray_tracer.scene import Scene
 
         scene = Scene.build(
             sphere_origin=[[0.0, 0.0, -1.0]],
@@ -117,7 +118,7 @@ class TestCheckpoint:
 
 class TestDisplay:
     def test_render_ansi_shape_and_codes(self):
-        from opencl_ray_tracer_tpu.utils import render_ansi
+        from opencl_ray_tracer.utils import render_ansi
 
         fb = np.zeros((64, 128, 4), np.int32)
         fb[:, :, 0] = 200  # red field
@@ -130,7 +131,7 @@ class TestDisplay:
         assert lines[0].endswith("\x1b[0m")
 
     def test_render_ansi_halfblock_pairs_rows(self):
-        from opencl_ray_tracer_tpu.utils import render_ansi
+        from opencl_ray_tracer.utils import render_ansi
 
         fb = np.zeros((4, 4, 4), np.float32)
         fb[0::2, :, 1] = 255.0  # green stripes on even rows
@@ -139,8 +140,8 @@ class TestDisplay:
         assert "\x1b[38;2;0;255;0m\x1b[48;2;0;0;0m" in s
 
     def test_app_display_key(self, capsys):
-        from opencl_ray_tracer_tpu import RenderConfig
-        from opencl_ray_tracer_tpu.app import (
+        from opencl_ray_tracer import RenderConfig
+        from opencl_ray_tracer.app import (
             InputManager, MainState, StateManager,
         )
 
